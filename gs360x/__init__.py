@@ -1,13 +1,13 @@
-"""gs360x — TPU-native 360° camera → photogrammetry / 3DGS dataset toolkit.
+"""gs360x — GPU-accelerated 360° camera → photogrammetry / 3DGS dataset toolkit.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the
+A JAX/XLA framework with the capabilities of the
 ``360Cam-PGM-3DGS-Tools`` reference toolkit: equirectangular / dual-fisheye
 video in, perspective photogrammetry datasets + optimized point clouds out.
 
 Layering (bottom-up):
 
 - :mod:`gs360x.core`    — pure camera/pose/color math (host numpy + device jnp)
-- :mod:`gs360x.kernels` — Pallas/XLA device kernels (warp, sharpness, flow,
+- :mod:`gs360x.kernels` — XLA device kernels (warp, sharpness, flow,
   morphology, voxel)
 - :mod:`gs360x.rig`     — view-rig presets and the addcam/delcam/setcam grammar
 - :mod:`gs360x.io`      — image/video/pointcloud IO and the camera-format hub

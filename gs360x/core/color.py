@@ -19,6 +19,7 @@ import pathlib
 from dataclasses import dataclass
 from typing import Tuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -117,17 +118,10 @@ SMPTE170M_TO_BT709 = np.linalg.inv(BT709_TO_SMPTE170M)
 
 
 def apply_rgb_matrix(rgb: jnp.ndarray, mat: np.ndarray) -> jnp.ndarray:
-    return jnp.einsum("...c,dc->...d", rgb, jnp.asarray(mat, dtype=rgb.dtype))
-
-
-def video_color_move_planar(rgb: jnp.ndarray, *,
-                            keep_rec709: bool = False) -> jnp.ndarray:
-    """:func:`video_color_move` for channel-first (..., 3, H, W) tensors
-    (the TPU-friendly layout — minor-dim-3 arrays tile pathologically)."""
-    lin = rec709_to_linear(rgb)
-    mat = jnp.asarray(BT709_TO_SMPTE170M, dtype=rgb.dtype)
-    lin = jnp.clip(jnp.einsum("...chw,dc->...dhw", lin, mat), 0.0, 1.0)
-    return linear_to_rec709(lin) if keep_rec709 else linear_to_srgb(lin)
+    # HIGHEST: a GPU runs a default-precision f32 contraction in TF32,
+    # whose ~1e-3 relative error can move an 8-bit output by one level
+    return jnp.einsum("...c,dc->...d", rgb, jnp.asarray(mat, dtype=rgb.dtype),
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def video_color_move(rgb: jnp.ndarray, *, keep_rec709: bool = False) -> jnp.ndarray:

@@ -922,9 +922,9 @@ class MaskSegTab(ToolTab):
 
 
 class ConfigTab(ttk.Frame):
-    """Config tab (reference ``gs360_GUI.py:8881-8931``): theme, ffmpeg
-    path, default warp backend — persisted in the settings JSON and read
-    by the tool tabs at argv-build time."""
+    """Config tab (reference ``gs360_GUI.py:8881-8931``): theme and ffmpeg
+    path — persisted in the settings JSON and read by the tool tabs at
+    argv-build time."""
 
     def __init__(self, master, app):
         super().__init__(master)
@@ -950,20 +950,11 @@ class ConfigTab(ttk.Frame):
         ttk.Button(form, text="…", width=3,
                    command=self._browse_ffmpeg).grid(row=1, column=2)
 
-        ttk.Label(form, text="Warp backend").grid(row=2, column=0,
-                                                  sticky="w", padx=4,
-                                                  pady=4)
-        self.backend_var = tk.StringVar(
-            value=app.settings.get("backend", "auto"))
-        ttk.Combobox(form, textvariable=self.backend_var, state="readonly",
-                     values=["auto", "pallas", "xla"],
-                     width=24).grid(row=2, column=1, sticky="w")
-
         ttk.Button(form, text="Apply",
-                   command=self.apply).grid(row=3, column=1, sticky="w",
+                   command=self.apply).grid(row=2, column=1, sticky="w",
                                             pady=8)
         self.status = ttk.Label(form, text="")
-        self.status.grid(row=4, column=0, columnspan=3, sticky="w", padx=4)
+        self.status.grid(row=3, column=0, columnspan=3, sticky="w", padx=4)
         form.columnconfigure(1, weight=1)
 
         saved_theme = app.settings.get("theme")
@@ -988,7 +979,6 @@ class ConfigTab(ttk.Frame):
             pass
         self.app.settings.set("theme", theme)
         self.app.settings.set("ffmpeg_path", self.ffmpeg_var.get().strip())
-        self.app.settings.set("backend", self.backend_var.get())
         if self.ffmpeg_var.get().strip():
             # subprocess tools resolve ffmpeg via PATH; prepend its dir
             ffdir = str(pathlib.Path(self.ffmpeg_var.get()).parent)
@@ -1008,7 +998,7 @@ class App:
         self.settings = Settings(settings_path)
         self.runner = ProcessRunner()
         self.log_queue: "queue.Queue" = queue.Queue()
-        root.title("gs360x — 360° → photogrammetry / 3DGS toolkit (TPU)")
+        root.title("gs360x — 360° → photogrammetry / 3DGS toolkit")
         root.geometry("980x720")
 
         notebook = ttk.Notebook(root)
@@ -1052,6 +1042,13 @@ class App:
 
 
 def main() -> int:
+    # The GUI's in-process work (the segmentation preview) runs on the CPU
+    # by design: the card belongs to the one tool subprocess ProcessRunner
+    # allows at a time, and a second JAX process on the card would reserve
+    # most of its memory.
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
     root = tk.Tk()
     App(root)
     root.mainloop()

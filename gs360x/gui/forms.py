@@ -119,7 +119,6 @@ PERSPCUT_FIELDS: Sequence[Field] = (
     ("fps", "FPS (video)", "str", ""),
     ("select_csv", "Selection CSV (video)", "path", ""),
     ("ext", "Extension", "str", "jpg"),
-    ("backend", "Backend", "choice:auto|pallas|xla", "auto"),
 )
 
 
@@ -138,7 +137,6 @@ def build_perspcut_argv(v: Dict) -> List[str]:
     _opt(argv, "-f", v.get("fps"))
     _opt(argv, "--select-csv", v.get("select_csv"))
     _opt(argv, "--ext", v.get("ext"), "jpg")
-    _opt(argv, "--backend", v.get("backend"), "auto")
     return argv
 
 

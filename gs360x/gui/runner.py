@@ -1,6 +1,10 @@
 """Subprocess manager for the GUI: single-flight keyed runs with streamed
 logs, stop buttons, and a sequential command queue (reference
-``gs360_GUI.py:8949-9173``)."""
+``gs360_GUI.py:8949-9173``).
+
+Every tool is a JAX process, and a JAX process reserves most of the
+card's memory when it starts, so the runner starts one tool at a time:
+a second run, under any key, is refused while one is in flight."""
 
 from __future__ import annotations
 
@@ -11,24 +15,27 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 
 class ProcessRunner:
-    """Runs one subprocess per key; streams stdout lines to a callback."""
+    """Runs one subprocess at a time; streams stdout lines to a callback."""
 
     def __init__(self):
         self._procs: Dict[str, subprocess.Popen] = {}
         self._lock = threading.Lock()
 
-    def is_running(self, key: str) -> bool:
+    def running_key(self) -> Optional[str]:
+        """Key of the run in flight, if any."""
         with self._lock:
-            proc = self._procs.get(key)
-        return proc is not None and proc.poll() is None
+            items = list(self._procs.items())
+        return next((k for k, proc in items if proc.poll() is None), None)
 
     def run(self, key: str, argv: Sequence[str],
             on_line: Callable[[str], None],
             on_done: Optional[Callable[[int], None]] = None) -> bool:
-        """Start argv under ``key``. Returns False if one is already
-        running for that key."""
-        if self.is_running(key):
-            on_line(f"[WARN] {key} is already running\n")
+        """Start argv under ``key``. Returns False if a run (under any
+        key) is already in flight."""
+        busy = self.running_key()
+        if busy is not None:
+            on_line(f"[WARN] {busy} is already running; one tool at a time "
+                    "uses the card\n")
             return False
         proc = subprocess.Popen(list(argv), stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True,
@@ -53,8 +60,10 @@ class ProcessRunner:
                   on_done: Optional[Callable[[int], None]] = None) -> bool:
         """Run commands sequentially under one key (the dual-fisheye
         Y-then-X extraction pattern, reference ``:9035-9068``)."""
-        if self.is_running(key):
-            on_line(f"[WARN] {key} is already running\n")
+        busy = self.running_key()
+        if busy is not None:
+            on_line(f"[WARN] {busy} is already running; one tool at a time "
+                    "uses the card\n")
             return False
         argvs = [list(a) for a in argvs]
 

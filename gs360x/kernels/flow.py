@@ -276,7 +276,7 @@ def farneback_flow(prev: jnp.ndarray, curr: jnp.ndarray, *,
     cv2.calcOpticalFlowFarneback(..., 0.5, 1, 15, 3, 5, 1.1, 0)).
 
     Polynomial expansion is separable Gaussian-weighted moment filtering
-    (convolutions — MXU-friendly); each iteration re-samples the second
+    (convolutions); each iteration re-samples the second
     frame's expansion at the current flow and solves the windowed 2x2
     normal equations. Returns (H, W, 2) [dx, dy] in pixels.
     """

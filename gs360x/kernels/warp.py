@@ -21,11 +21,9 @@ Interpolation matches ffmpeg v360's kernels: ``bilinear``; ``bicubic`` = the
 ``nearest`` for masks. Horizontal wrap (longitude seam) uses modulo-W; the
 vertical axis clamps.
 
-Two backends:
-
-* ``xla``   — jnp.take gathers; fully general, runs everywhere.
-* ``pallas``— fused tile kernel for the TPU hot path (see
-  :mod:`gs360x.kernels.warp_pallas`).
+The sampler is plain ``jnp.take`` gathers that XLA compiles for whatever
+device runs it; :mod:`gs360x.kernels.v360_oracle` is its independent
+reference.
 """
 
 from __future__ import annotations
@@ -36,15 +34,7 @@ from typing import Optional, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
-
-
-def default_device_platform() -> str:
-    """Platform of the device jit actually targets (respects
-    jax_default_device, which tests use to pin CPU under TPU plugins)."""
-    dev = jax.config.jax_default_device
-    if dev is None:
-        dev = jax.devices()[0]
-    return getattr(dev, "platform", jax.default_backend())
+import numpy as np
 
 from gs360x.rig.spec import ViewSpec
 
@@ -88,8 +78,9 @@ def view_rotation(yaw_deg, pitch_deg, roll_deg):
 
     Same convention as :func:`gs360x.core.pose.view_rotation_cv`: positive
     yaw pans right, positive pitch looks up. Composed at HIGHEST matmul
-    precision — JAX's default truncates f32 matmuls to bf16 passes, which
-    costs ~1e-3 in the rotation and visibly (0.5+ px) shifts warp coords.
+    precision — a default-precision f32 matmul may run in TF32 on a GPU,
+    which costs ~1e-3 in the rotation and visibly (0.5+ px) shifts warp
+    coords.
     """
     d = jnp.pi / 180.0
     hi = jax.lax.Precision.HIGHEST
@@ -101,8 +92,9 @@ def rotate_rays(rays: jnp.ndarray, r: jnp.ndarray) -> jnp.ndarray:
     """Apply a 3x3 rotation to a (..., 3) ray field elementwise.
 
     Written as broadcast FMAs rather than a matmul: a (H*W, 3)x(3, 3)
-    contraction is a degenerate MXU shape AND silently runs at bf16
-    precision by default — elementwise keeps full f32 and fuses.
+    contraction is a degenerate matmul shape AND may run at reduced
+    precision by default (TF32 on a GPU) — elementwise keeps full f32 and
+    fuses into the warp.
     """
     x, y, z = rays[..., 0], rays[..., 1], rays[..., 2]
     return jnp.stack([
@@ -292,7 +284,7 @@ def remap(src: jnp.ndarray, u: jnp.ndarray, v: jnp.ndarray, *,
           pole_reflect: bool = False,
           valid: Optional[jnp.ndarray] = None,
           fill: float = 0.0) -> jnp.ndarray:
-    """General remap (the TPU replacement for ``cv2.remap``): sample src at
+    """General remap (the device replacement for ``cv2.remap``): sample src at
     (u, v) with the chosen kernel, filling invalid coords with ``fill``.
     ``pole_reflect`` selects v360's equirect tap boundary (reflect over
     the pole + half-width shift) — only meaningful for equirect
@@ -360,31 +352,14 @@ def warp_equirect_to_views(src: jnp.ndarray,
                            width: int, height: int,
                            hfov_deg: float, vfov_deg: float,
                            projection: str = "perspective",
-                           interp: str = "bicubic",
-                           backend: str = "xla") -> jnp.ndarray:
+                           interp: str = "bicubic") -> jnp.ndarray:
     """Cut V views out of an equirect image in one fused device program.
 
     Args:
       src: (H, W, C) float source panorama.
-      yaws/pitches/rolls: (V,) per-view angles in degrees (host values when
-        backend is 'pallas'/'auto' — the tile planner needs them).
-      backend: 'xla' (general), 'pallas' (fast path, raises on unsupported
-        geometry), or 'auto' (pallas with transparent XLA fallback).
+      yaws/pitches/rolls: (V,) per-view angles in degrees.
     Returns: (V, height, width, C) float.
     """
-    if backend in ("pallas", "auto"):
-        from gs360x.kernels import warp_pallas
-        try:
-            # off-TPU the Mosaic kernel runs in interpret mode (tests, CPU
-            # dev boxes); on TPU it compiles natively
-            interpret = default_device_platform() != "tpu"
-            return warp_pallas.warp_equirect_to_views_pallas(
-                src, yaws, pitches, rolls, width=width, height=height,
-                hfov_deg=hfov_deg, vfov_deg=vfov_deg, projection=projection,
-                interp=interp, interpret=interpret)
-        except warp_pallas.PallasFallback:
-            if backend == "pallas":
-                raise
     return _warp_equirect_to_views_xla(
         src, jnp.asarray(yaws, jnp.float32), jnp.asarray(pitches, jnp.float32),
         jnp.asarray(rolls, jnp.float32), width=width, height=height,
@@ -392,30 +367,37 @@ def warp_equirect_to_views(src: jnp.ndarray,
         interp=interp)
 
 
-def warp_plan_views(src: jnp.ndarray, views: Sequence[ViewSpec], *,
-                    interp: str = "bicubic", backend: str = "xla"):
-    """Warp a frame through a heterogeneous list of ViewSpecs.
-
-    Groups views by (projection, size, fov) — each group is one batched
-    device call — and returns outputs in the original view order.
-    """
+def group_views(views: Sequence[ViewSpec]) -> dict:
+    """Group view indices by (projection, width, height, hfov, vfov): the
+    static part of a warp program. Each group is one batched device call
+    whose per-view angles are ``view_angles`` of its members."""
     groups: dict = {}
     for i, view in enumerate(views):
         key = (view.projection, view.width, view.height,
                round(view.hfov_deg, 6), round(view.vfov_deg, 6))
         groups.setdefault(key, []).append(i)
+    return groups
 
-    import numpy as _np
 
+def view_angles(views: Sequence[ViewSpec], idxs):
+    """(yaws, pitches, rolls) float32 arrays of ``views[i] for i in idxs``."""
+    return tuple(np.array([getattr(views[i], name) for i in idxs], np.float32)
+                 for name in ("yaw_deg", "pitch_deg", "roll_deg"))
+
+
+def warp_plan_views(src: jnp.ndarray, views: Sequence[ViewSpec], *,
+                    interp: str = "bicubic"):
+    """Warp a frame through a heterogeneous list of ViewSpecs.
+
+    Each :func:`group_views` group is one batched device call; outputs
+    come back in the original view order.
+    """
     results: list = [None] * len(views)
-    for (projection, w, h, hfov, vfov), idxs in groups.items():
-        yaws = _np.array([views[i].yaw_deg for i in idxs], _np.float32)
-        pitches = _np.array([views[i].pitch_deg for i in idxs], _np.float32)
-        rolls = _np.array([views[i].roll_deg for i in idxs], _np.float32)
+    for (projection, w, h, hfov, vfov), idxs in group_views(views).items():
+        yaws, pitches, rolls = view_angles(views, idxs)
         out = warp_equirect_to_views(
             src, yaws, pitches, rolls, width=w, height=h, hfov_deg=hfov,
-            vfov_deg=vfov, projection=projection, interp=interp,
-            backend=backend)
+            vfov_deg=vfov, projection=projection, interp=interp)
         for j, i in enumerate(idxs):
             results[i] = out[j]
     return results

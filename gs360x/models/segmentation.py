@@ -1,4 +1,4 @@
-"""Flax segmentation network — the TPU-native subject-masking model.
+"""Flax segmentation network — the device subject-masking model.
 
 Replaces the reference's torchvision Mask R-CNN inference
 (``/root/reference/cli_tools/gs360_SegmentationMaskTool.py:262-332,

@@ -35,7 +35,7 @@ def _build() -> bool:
     if not _SRC.exists() or shutil.which("g++") is None:
         return False
     cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-           "-o", str(_LIB_PATH), str(_SRC), "-lpthread"]
+           "-o", str(_LIB_PATH), str(_SRC)]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=300)
         return True
@@ -56,13 +56,6 @@ def _load() -> None:
         return
     i64 = ctypes.c_int64
     u8p = ctypes.POINTER(ctypes.c_uint8)
-    f32p = ctypes.POINTER(ctypes.c_float)
-    lib.gs_deinterleave_u8.argtypes = [u8p, u8p, i64, i64, i64]
-    lib.gs_interleave_u8.argtypes = [u8p, u8p, i64, i64, i64]
-    lib.gs_planar_f32_to_u8_hwc.argtypes = [f32p, u8p, i64, i64, i64]
-    lib.gs_planar_f32_to_u8_hwc_mt.argtypes = [f32p, u8p, i64, i64, i64,
-                                               ctypes.c_int]
-    lib.gs_f32_to_u8.argtypes = [f32p, u8p, i64]
     lib.gs_yuv444_to_rgb.argtypes = [u8p, u8p, i64, i64]
     lib.gs_yuv420_to_rgb.argtypes = [u8p, u8p, i64, i64]
     lib.gs_avi_scan.argtypes = [u8p, i64, ctypes.POINTER(i64),
@@ -78,44 +71,6 @@ _load()
 
 def _u8p(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
-
-
-def _f32p(a: np.ndarray):
-    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
-
-
-def planar_f32_to_u8_hwc(chw: np.ndarray, threads: int = 2) -> np.ndarray:
-    """float [0,1] (C, H, W) → uint8 (H, W, C), fused convert+interleave
-    (the async-writer encode transform)."""
-    chw = np.ascontiguousarray(chw, np.float32)
-    c, h, w = chw.shape
-    if not HAS_NATIVE:
-        return np.clip(np.moveaxis(chw, 0, -1) * 255.0 + 0.5,
-                       0, 255).astype(np.uint8)
-    out = np.empty((h, w, c), np.uint8)
-    _lib.gs_planar_f32_to_u8_hwc_mt(_f32p(chw), _u8p(out), h, w, c,
-                                    int(threads))
-    return out
-
-
-def interleave_u8(chw: np.ndarray) -> np.ndarray:
-    chw = np.ascontiguousarray(chw, np.uint8)
-    c, h, w = chw.shape
-    if not HAS_NATIVE:
-        return np.ascontiguousarray(np.moveaxis(chw, 0, -1))
-    out = np.empty((h, w, c), np.uint8)
-    _lib.gs_interleave_u8(_u8p(chw), _u8p(out), h, w, c)
-    return out
-
-
-def deinterleave_u8(hwc: np.ndarray) -> np.ndarray:
-    hwc = np.ascontiguousarray(hwc, np.uint8)
-    h, w, c = hwc.shape
-    if not HAS_NATIVE:
-        return np.ascontiguousarray(np.moveaxis(hwc, -1, 0))
-    out = np.empty((c, h, w), np.uint8)
-    _lib.gs_deinterleave_u8(_u8p(hwc), _u8p(out), h, w, c)
-    return out
 
 
 def yuv444_to_rgb(yuv_planar: np.ndarray) -> np.ndarray:

@@ -1,7 +1,7 @@
 """Declarative view/render plan datatypes.
 
 A :class:`RenderPlan` is the full, executable description of a multi-view
-export — the TPU-native analogue of the reference's ffmpeg job list
+export — the device-side analogue of the reference's ffmpeg job list
 (``/root/reference/cli_tools/gs360_360PerspCut.py:32-63``). It is pure data:
 building one performs no IO, which keeps ``--dry-run`` and tests cheap, and
 lets the runtime batch all views of a frame into one device program.

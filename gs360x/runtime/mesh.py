@@ -1,11 +1,14 @@
 """Device-mesh data parallelism for the warp pipeline.
 
 The reference's only scale axis is (frames × views) fan-out over ffmpeg
-processes (SURVEY §2.5); the TPU-native equivalent is pure data parallelism
-over a 1-D ``jax.sharding.Mesh``: frames are sharded across chips, each chip
-warps all views of its frames, collectives are only needed for metrics
-reductions (``psum``). Multi-host pods would feed per-host frame shards over
-DCN; on-pod traffic rides ICI automatically via jit's SPMD partitioner.
+processes (SURVEY §2.5); the device equivalent is pure data parallelism
+over a 1-D ``jax.sharding.Mesh``: frames are sharded across cards, each card
+warps all views of its frames, and collectives are only needed for metrics
+reductions (``psum``). The cards of one host are joined all to all, so the
+mesh follows the algorithm alone.
+
+:func:`pipeline_devices` is the one place that decides which devices the
+pipeline runs on.
 """
 
 from __future__ import annotations
@@ -19,6 +22,24 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 DATA_AXIS = "data"
+
+
+def pipeline_devices() -> list:
+    """Devices the pipeline runs on, chosen from the default platform.
+
+    A GPU host gets every card. The CPU gets one device: XLA's CPU SPMD
+    partitioner compiles this program pathologically slowly on a multi-device
+    host mesh, and the sharding logic itself is tested on virtual CPU
+    meshes through :func:`data_mesh` directly. Any other platform is an error,
+    not a default.
+    """
+    devs = jax.devices()
+    platform = devs[0].platform
+    if platform == "gpu":
+        return list(devs)
+    if platform == "cpu":
+        return list(devs[:1])
+    raise RuntimeError(f"unsupported JAX platform {platform!r}")
 
 
 def data_mesh(devices: Optional[Sequence] = None) -> Mesh:
@@ -70,101 +91,30 @@ def warp_frames_sharded(mesh: Mesh, frames: jnp.ndarray, yaws, pitches,
                         keep_rec709=None, quantize_bits=None):
     """Warp a frame batch data-parallel over the mesh.
 
-    ``frames``: (B, H, W, C) with B divisible by mesh size (uint8/uint16
-    batches normalize on device — 4x less host→device traffic). Output is
-    (B, V, height, width, C), sharded the same way — each chip's outputs
-    stay local until the host drains them (no cross-chip pixel traffic).
+    ``frames``: (B, H, W, C), uint8/uint16 batches normalize on device
+    (4x less host→device traffic than float). A batch that does not divide
+    by the mesh size (a video's tail) is padded with copies of its last
+    frame and the padding is dropped from the result. Output is
+    (B, V, height, width, C), sharded the same way — each card's outputs
+    stay local until the host drains them (no cross-card pixel traffic).
     The optional color move and uint8/uint16 quantization fuse into the
     same program (see gs360x.runtime.executor for why).
     """
+    batch = int(frames.shape[0])
+    pad = (-batch) % mesh.devices.size
+    if pad:
+        xp = np if isinstance(frames, np.ndarray) else jnp
+        frames = xp.concatenate([frames, xp.repeat(frames[-1:], pad, axis=0)])
     frames = shard_frames(mesh, frames)
     yaws = jnp.asarray(yaws, jnp.float32)
     pitches = jnp.asarray(pitches, jnp.float32)
     rolls = jnp.asarray(rolls, jnp.float32)
-    with mesh:
-        out = _warp_batch(frames, yaws, pitches, rolls, width=width,
-                          height=height, hfov_deg=hfov_deg,
-                          vfov_deg=vfov_deg, interp=interp,
-                          projection=projection, keep_rec709=keep_rec709,
-                          quantize_bits=quantize_bits)
-    return out
-
-
-def warp_frames_sharded_pallas(mesh: Mesh, frames_rows: jnp.ndarray, yaws,
-                               pitches, rolls, *, width: int, height: int,
-                               hfov_deg: float, vfov_deg: float,
-                               interp: str = "bicubic",
-                               projection: str = "perspective",
-                               keep_rec709=None, quantize_bits=None,
-                               interpret: bool = False):
-    """Data-parallel PALLAS warp: each device runs the fused Mosaic kernel
-    on its own frame shard (``shard_map`` over the 1-D data mesh — the
-    workload is embarrassingly parallel, so there is no collective in the
-    program; outputs stay device-local until the host drains them).
-
-    ``frames_rows``: (B, H, W*3) uint8/uint16/f32 flattened-HWC rows with
-    B divisible by the mesh size. Returns planar (B, V, 3, height, width),
-    quantized on device when ``quantize_bits`` is set. Raises
-    :class:`gs360x.kernels.warp_pallas.PallasFallback` at trace time when
-    any view exceeds the kernel budgets (callers fall back to
-    :func:`warp_frames_sharded`, the XLA lowering).
-    """
-    from gs360x.core import color as colorlib
-    from gs360x.kernels import warp_pallas as wp
-
-    n = int(np.prod(mesh.devices.shape))
-    batch = int(frames_rows.shape[0])
-    pad = (-batch) % n
-    if pad:
-        # graceful remainder handling: replicate the tail frame so the
-        # shard_map sees an even batch, then drop the pad rows — the tail
-        # of a video export is the common uneven case (VERDICT r2 #8)
-        frames_rows = jnp.concatenate(
-            [frames_rows,
-             jnp.broadcast_to(frames_rows[-1:],
-                              (pad,) + tuple(frames_rows.shape[1:]))],
-            axis=0)
-        batch += pad
-    per_dev = batch // n
-    yaws = np.asarray(yaws, np.float64).reshape(-1)
-    pitches = np.asarray(pitches, np.float64).reshape(-1)
-    rolls = np.asarray(rolls, np.float64).reshape(-1)
-
-    def shard_fn(rows_shard):
-        outs = []
-        for b in range(per_dev):
-            out = wp.warp_equirect_to_views_pallas(
-                rows_shard[b], yaws, pitches, rolls, width=width,
-                height=height, hfov_deg=hfov_deg, vfov_deg=vfov_deg,
-                projection=projection, interp=interp, planar=True,
-                interpret=interpret)
-            if keep_rec709 is not None:
-                out = colorlib.video_color_move_planar(
-                    out, keep_rec709=keep_rec709)
-            if quantize_bits is not None:
-                scale = 65535.0 if quantize_bits > 8 else 255.0
-                dt = jnp.uint16 if quantize_bits > 8 else jnp.uint8
-                out = jnp.rint(jnp.clip(out, 0.0, 1.0) * scale).astype(dt)
-            outs.append(out)
-        return jnp.stack(outs)
-
-    # planning runs eagerly on the host (concrete angles) so PallasFallback
-    # propagates out of here before any device program is built
-    wp.check_view_budgets(
-        yaws, pitches, rolls, width=width, height=height,
-        hfov_deg=hfov_deg, vfov_deg=vfov_deg,
-        src_w=int(frames_rows.shape[2]) // 3,
-        src_h=int(frames_rows.shape[1]), projection=projection)
-
-    sharded = jax.device_put(
-        frames_rows, NamedSharding(mesh, P(DATA_AXIS, None, None)))
-    # check_vma=False: pallas_call's out_shape carries no varying-mesh-axes
-    # annotation, and the program is per-device pure (no collectives)
-    fn = jax.shard_map(shard_fn, mesh=mesh, in_specs=P(DATA_AXIS),
-                       out_specs=P(DATA_AXIS), check_vma=False)
-    with mesh:
-        out = fn(sharded)
-    return out[:batch - pad] if pad else out
+    # jit follows the batch's sharding: each card warps its own frames
+    out = _warp_batch(frames, yaws, pitches, rolls, width=width,
+                      height=height, hfov_deg=hfov_deg, vfov_deg=vfov_deg,
+                      interp=interp, projection=projection,
+                      keep_rec709=keep_rec709, quantize_bits=quantize_bits)
+    return out[:batch] if pad else out
 
 
 def sharded_batch_stats(mesh: Mesh, frames: jnp.ndarray):
@@ -180,5 +130,4 @@ def sharded_batch_stats(mesh: Mesh, frames: jnp.ndarray):
         ten = jnp.mean(jax.vmap(sharp.tenengrad)(gray * 255.0))
         return lum, ten
 
-    with mesh:
-        return stats(shard_frames(mesh, frames))
+    return stats(shard_frames(mesh, frames))

@@ -1,6 +1,6 @@
 """gs360x-frameselector — sharpness-based frame selection.
 
-TPU-native rebuild of ``gs360_FrameSelector``
+JAX rebuild of ``gs360_FrameSelector``
 (``/root/reference/cli_tools/gs360_FrameSelector.py``): scores frames on
 device (Laplacian-variance / tenengrad / FFT hybrid or the sobel-YAVG
 "ffmpeg" backend), keeps the sharpest frame per segment, augments spacing

@@ -1,6 +1,6 @@
 """gs360x-perspcut — equirect panoramas/video → perspective or fisheye cuts.
 
-TPU-native rebuild of ``gs360_360PerspCut``
+JAX rebuild of ``gs360_360PerspCut``
 (``/root/reference/cli_tools/gs360_360PerspCut.py``): same flag surface,
 presets, camera grammar, output naming, and focal-info lines; the
 reprojection runs as one batched device program per frame instead of one
@@ -38,7 +38,8 @@ class StoreWithFlag(argparse.Action):
 def create_arg_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description=("Batch convert equirectangular images/video into "
-                     "perspective or fisheye views on TPU (JAX), including "
+                     "perspective or fisheye views on the accelerator (JAX), "
+                     "including "
                      "virtual camera add/delete/set operations."),
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
         epilog=("Notes: presets can be overridden with --focal-mm / --size / "
@@ -98,10 +99,6 @@ def create_arg_parser() -> argparse.ArgumentParser:
                     help="Print the full view plan without executing")
     ap.add_argument("--interp", choices=["bilinear", "bicubic", "nearest"],
                     default="bicubic", help="Resampling kernel")
-    ap.add_argument("--backend", choices=["auto", "xla", "pallas"],
-                    default="auto",
-                    help="Warp kernel backend (auto = pallas fast path with "
-                         "transparent XLA fallback)")
     ap.add_argument("--stats", action="store_true",
                     help="Print per-stage pipeline timers "
                          "(decode/warp/fetch) after the run.")
@@ -269,8 +266,7 @@ def main(argv=None) -> int:
     start_cancel_listener(stop_event)
 
     from gs360x.runtime.executor import run_plan
-    report = run_plan(plan, backend=args.backend,
-                      overwrite=not args.no_overwrite,
+    report = run_plan(plan, overwrite=not args.no_overwrite,
                       writer_workers=workers, stop_event=stop_event,
                       stats=args.stats)
 

@@ -2,7 +2,7 @@
 
 The reference ships no training path: it downloads torchvision's
 COCO-pretrained Mask R-CNN (``gs360_SegmentationMaskTool.py:262-288``),
-which a closed TPU deployment cannot. This tool closes that loop: given
+which an offline deployment cannot. This tool closes that loop: given
 a folder of images and a folder of same-stem mask PNGs (pixel value =
 class id, see :data:`gs360x.models.segmentation.TARGET_TO_CLASSES`; any
 nonzero value in a single-target dataset maps to the chosen class), it

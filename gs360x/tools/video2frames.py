@@ -1,6 +1,6 @@
 """gs360x-video2frames — extract frames from video at N fps.
 
-TPU-native rebuild of ``gs360_Video2Frames``
+JAX rebuild of ``gs360_Video2Frames``
 (``/root/reference/cli_tools/gs360_Video2Frames.py``): decodes the video
 (pure-Python Y4M/MJPEG-AVI codecs, or ffmpeg when present), applies the
 Rec.709→SMPTE-170M (+ sRGB transfer unless ``--keep-rec709``) color move as

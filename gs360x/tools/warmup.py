@@ -1,11 +1,10 @@
-"""gs360x-warmup — prime the persistent kernel-compile cache.
+"""gs360x-warmup — prime the persistent compile cache.
 
 First contact with a new (source size × view size × preset) combination
-pays the Mosaic compile for its warp kernels — minutes through a remote
-compile service. The compiled binaries land in the persistent JAX cache
-(``~/.cache/gs360x/jax_cache``), so paying it once per machine, ahead of
-time, makes every later run start hot. This tool runs one dummy frame
-through the exact kernel classes a production run would use.
+compiles its warp programs. The compiled programs land in the persistent
+JAX cache (:func:`gs360x.kernels.jaxsetup.cache_dir`), so paying that once,
+ahead of time, makes every later run start hot. This tool runs one dummy
+frame through the exact programs a production run would use.
 
 Examples::
 
@@ -35,7 +34,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     from gs360x.rig.presets import PRESET_CHOICES
 
     ap = argparse.ArgumentParser(
-        description="Pre-compile the warp kernels for given shapes so "
+        description="Pre-compile the warp programs for given shapes so "
                     "production runs start hot.")
     ap.add_argument("--src", type=parse_wh, default=(7680, 3840),
                     help="Equirect source size WxH (default 7680x3840)")
@@ -49,18 +48,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--all", action="store_true",
                     help="Warm the full production matrix: every preset at "
                          "its default size (plus the given --size list), "
-                         "and the dual-fisheye SFM10 remap at 1750 px. "
-                         "One-time minutes-long cost per machine; after it "
-                         "no production preset pays a cold Mosaic compile.")
+                         "and the dual-fisheye SFM10 remap at 1750 px.")
     return ap
 
 
 def warm_remap(src_size: int = 3840, view_px: int = 1750) -> None:
-    """Prime the dual-fisheye direct-perspective remap kernels."""
-    import numpy as np
-
+    """Prime the dual-fisheye direct-perspective remap programs."""
     from gs360x import templates
-    from gs360x.kernels import remap_pallas
     from gs360x.tools import dualfisheye as df
 
     calib_path = templates.default_osmo360_calibration_path()
@@ -72,11 +66,11 @@ def warm_remap(src_size: int = 3840, view_px: int = 1750) -> None:
     mx, my, valid = df.build_direct_perspective_map(
         calib, spec["yaw_deg"], spec["pitch_deg"], spec["hfov_deg"],
         spec["vfov_deg"], view_px, view_px, 190.0)
-    prep = remap_pallas.PreparedRemap(mx, my, valid.astype(np.float32),
-                                      src_w=src_size, src_h=src_size)
-    frame = np.zeros((src_size, src_size * 3), np.uint8)
-    for interp in ("bicubic", "bilinear"):
-        np.asarray(prep(frame, interp=interp))
+    frame = np.zeros((src_size, src_size, 3), np.float32)
+    # the CLI's --interpolation choices: nearest / linear / cubic
+    for interp in ("catmull-rom", "bilinear", "nearest"):
+        df.device_remap(frame, mx, my, valid, interp=interp, fill=0.0,
+                        quantize=True)
 
 
 def main(argv=None) -> int:
@@ -86,11 +80,13 @@ def main(argv=None) -> int:
     import jax
 
     from gs360x.rig.presets import PerspCutConfig, build_view_plan
-    from gs360x.runtime.executor import _warp_frame_views
+    from gs360x.runtime.executor import _warp_frames
+    from gs360x.runtime.mesh import data_mesh, pipeline_devices
 
     src_w, src_h = args.src
     rng = np.random.default_rng(0)
     frame = (rng.random((src_h, src_w, 3)) * 255).astype(np.uint8)
+    mesh = data_mesh(pipeline_devices()[:1])
     print(f"[INFO] device: {jax.devices()[0]}  source {src_w}x{src_h}")
 
     combos = [(p, s, True) for p in args.preset for s in args.size]
@@ -122,10 +118,9 @@ def main(argv=None) -> int:
         seen.add(vkey)
         for interp in args.interp:
             t0 = time.time()
-            outs = _warp_frame_views(frame, views, interp=interp,
-                                     backend="auto", quantize_bits=8)
-            for out, _j, _planar in outs:
-                np.asarray(out)
+            outs = _warp_frames([frame], views, interp=interp, mesh=mesh,
+                                quantize_bits=8)[0]
+            jax.block_until_ready([out for out, _ in outs])
             n += 1
             print(f"[OK] {preset} size={size} {interp}: "
                   f"{len(views)} views in {time.time() - t0:.1f}s "

@@ -1,79 +1,19 @@
 // gs360x native host library.
 //
-// The TPU owns all pixel *math*; this library owns the host-side byte
+// The device owns all pixel *math*; this library owns the host-side byte
 // plumbing around it — the operations the reference delegated to ffmpeg's
-// and OpenCV's native cores (SURVEY §2.2): channel interleave/deinterleave
-// on the encode/decode paths, float↔uint8 conversion, YUV→RGB for the
-// pure-Python video codecs, and RIFF/MJPEG-AVI demux scanning. Python
+// and OpenCV's native cores (SURVEY §2.2): YUV→RGB for the pure-Python
+// video codecs, and RIFF/MJPEG-AVI demux scanning. Python
 // binds via ctypes (no pybind11 in this environment).
 //
-// Build: g++ -O3 -march=native -shared -fPIC -o libgs360x_native.so \
-//            gs360x_native.cpp -lpthread
+// Build: g++ -O3 -shared -fPIC -std=c++17 -o libgs360x_native.so \
+//            gs360x_native.cpp
 
 #include <cstdint>
-#include <cstdio>
 #include <cstring>
-#include <thread>
 #include <vector>
-#include <algorithm>
 
 extern "C" {
-
-// ---------------------------------------------------------------------------
-// layout transforms
-// ---------------------------------------------------------------------------
-
-// (H, W, C) -> (C, H, W)
-int gs_deinterleave_u8(const uint8_t* hwc, uint8_t* chw,
-                       int64_t h, int64_t w, int64_t c) {
-    const int64_t plane = h * w;
-    for (int64_t ch = 0; ch < c; ++ch) {
-        uint8_t* dst = chw + ch * plane;
-        const uint8_t* src = hwc + ch;
-        for (int64_t i = 0; i < plane; ++i) dst[i] = src[i * c];
-    }
-    return 0;
-}
-
-// (C, H, W) -> (H, W, C)
-int gs_interleave_u8(const uint8_t* chw, uint8_t* hwc,
-                     int64_t h, int64_t w, int64_t c) {
-    const int64_t plane = h * w;
-    for (int64_t ch = 0; ch < c; ++ch) {
-        const uint8_t* src = chw + ch * plane;
-        uint8_t* dst = hwc + ch;
-        for (int64_t i = 0; i < plane; ++i) dst[i * c] = src[i];
-    }
-    return 0;
-}
-
-// float [0,1] (C, H, W) -> uint8 (H, W, C); fused convert + interleave —
-// exactly the async-writer encode path.
-int gs_planar_f32_to_u8_hwc(const float* chw, uint8_t* hwc,
-                            int64_t h, int64_t w, int64_t c) {
-    const int64_t plane = h * w;
-    for (int64_t ch = 0; ch < c; ++ch) {
-        const float* src = chw + ch * plane;
-        uint8_t* dst = hwc + ch;
-        for (int64_t i = 0; i < plane; ++i) {
-            float v = src[i] * 255.0f + 0.5f;
-            if (v < 0.0f) v = 0.0f;
-            if (v > 255.0f) v = 255.0f;
-            dst[i * c] = (uint8_t)v;
-        }
-    }
-    return 0;
-}
-
-int gs_f32_to_u8(const float* src, uint8_t* dst, int64_t n) {
-    for (int64_t i = 0; i < n; ++i) {
-        float v = src[i] * 255.0f + 0.5f;
-        if (v < 0.0f) v = 0.0f;
-        if (v > 255.0f) v = 255.0f;
-        dst[i] = (uint8_t)v;
-    }
-    return 0;
-}
 
 // ---------------------------------------------------------------------------
 // YUV -> RGB (BT.601 limited range; the Y4M codec path)
@@ -208,42 +148,6 @@ int64_t gs_avi_scan(const uint8_t* data, int64_t len,
     }
     info->n_frames = count;
     return count < max_frames ? count : max_frames;
-}
-
-// ---------------------------------------------------------------------------
-// multithreaded variant of the encode-path transform (the only hot host
-// loop that benefits from threads on multicore machines)
-// ---------------------------------------------------------------------------
-
-int gs_planar_f32_to_u8_hwc_mt(const float* chw, uint8_t* hwc,
-                               int64_t h, int64_t w, int64_t c,
-                               int n_threads) {
-    if (n_threads <= 1 || h < 64) {
-        return gs_planar_f32_to_u8_hwc(chw, hwc, h, w, c);
-    }
-    const int64_t plane = h * w;
-    std::vector<std::thread> threads;
-    int64_t rows_per = (h + n_threads - 1) / n_threads;
-    for (int t = 0; t < n_threads; ++t) {
-        int64_t y0 = t * rows_per;
-        int64_t y1 = std::min<int64_t>(h, y0 + rows_per);
-        if (y0 >= y1) break;
-        threads.emplace_back([=]() {
-            for (int64_t ch = 0; ch < c; ++ch) {
-                const float* src = chw + ch * plane + y0 * w;
-                uint8_t* dst = hwc + y0 * w * c + ch;
-                const int64_t n = (y1 - y0) * w;
-                for (int64_t i = 0; i < n; ++i) {
-                    float v = src[i] * 255.0f + 0.5f;
-                    if (v < 0.0f) v = 0.0f;
-                    if (v > 255.0f) v = 255.0f;
-                    dst[i * c] = (uint8_t)v;
-                }
-            }
-        });
-    }
-    for (auto& th : threads) th.join();
-    return 0;
 }
 
 }  // extern "C"

@@ -289,3 +289,81 @@ class TestCli:
     def test_missing_xml(self, tmp_path, capsys):
         rc = df.main(["--camera-xml", str(tmp_path / "no.xml")])
         assert rc == 1
+
+
+def _keys_weights(t, a=-0.5):
+    """Keys cubic-convolution weights of the taps at offsets -1, 0, 1, 2
+    from floor(u), written from the kernel's piecewise definition."""
+    out = []
+    for off in (-1, 0, 1, 2):
+        x = np.abs(t - off)
+        near = (a + 2) * x ** 3 - (a + 3) * x ** 2 + 1
+        far = a * x ** 3 - 5 * a * x ** 2 + 8 * a * x - 4 * a
+        out.append(np.where(x <= 1, near, np.where(x < 2, far, 0.0)))
+    return out
+
+
+def numpy_remap(img, map_x, map_y, valid, interp, fill):
+    """Independent float64 remap with clamped borders (cv2.remap with
+    BORDER_REPLICATE semantics) and ``fill`` outside ``valid``."""
+    h, w = img.shape[:2]
+    u = map_x.astype(np.float64)
+    v = map_y.astype(np.float64)
+    x0, y0 = np.floor(u).astype(int), np.floor(v).astype(int)
+    tx, ty = u - x0, v - y0
+    if interp == "bilinear":
+        offs, wx, wy = (0, 1), [1 - tx, tx], [1 - ty, ty]
+    else:
+        offs, wx, wy = (-1, 0, 1, 2), _keys_weights(tx), _keys_weights(ty)
+    out = np.zeros(u.shape + img.shape[2:])
+    for i, dy in enumerate(offs):
+        yi = np.clip(y0 + dy, 0, h - 1)
+        for j, dx in enumerate(offs):
+            xi = np.clip(x0 + dx, 0, w - 1)
+            wgt = wx[j] * wy[i]
+            out += (wgt[..., None] if img.ndim == 3 else wgt) * img[yi, xi]
+    mask = valid[..., None] if img.ndim == 3 else valid
+    return np.where(mask, out, fill)
+
+
+class TestDeviceRemap:
+    """``device_remap`` (the dual-fisheye CLI's device path) against the
+    independent numpy remap, on one lens's SFM10 views."""
+
+    LENS_PX, VIEW_PX, FILL = 256, 40, 0.3
+
+    def _maps(self, view_id):
+        calib = make_calib(size=self.LENS_PX)
+        spec = next(s for s in df.build_sfm10_specs(
+            self.VIEW_PX, 12.0, "36 36", 45.0, 45.0)
+            if s["view_id"] == view_id)
+        return df.build_direct_perspective_map(
+            calib, df.wrap_angle_deg(spec["yaw_deg"]), spec["pitch_deg"],
+            spec["hfov_deg"], spec["vfov_deg"], self.VIEW_PX, self.VIEW_PX,
+            190.0)
+
+    @pytest.mark.parametrize("interp", ["catmull-rom", "bilinear"])
+    @pytest.mark.parametrize("view_id", ["A", "A_U", "A_D", "B", "J"])
+    def test_matches_numpy_remap(self, view_id, interp):
+        mx, my, valid = self._maps(view_id)
+        assert valid.any()
+        valid[:5] = False    # a fill band in every view
+        rng = np.random.default_rng(3)
+        img = rng.random((self.LENS_PX, self.LENS_PX, 3)).astype(np.float32)
+        got = df.device_remap(img, mx, my, valid, interp=interp,
+                              fill=self.FILL, quantize=True)
+        want = numpy_remap(img, mx, my, valid, interp, self.FILL)
+        want_u8 = np.rint(np.clip(want, 0, 1) * 255).astype(np.int32)
+        assert got.dtype == np.uint8
+        assert got.shape == (self.VIEW_PX, self.VIEW_PX, 3)
+        assert np.abs(got.astype(np.int32) - want_u8).max() <= 1
+        assert np.all(got[~valid] == round(self.FILL * 255))
+
+    def test_gray_mask_keeps_2d_shape(self):
+        mx, my, valid = self._maps("A")
+        mask = (np.random.default_rng(4).random(
+            (self.LENS_PX, self.LENS_PX)) > 0.5).astype(np.float32)
+        got = df.device_remap(mask, mx, my, valid, interp="nearest",
+                              fill=0.0)
+        assert got.shape == (self.VIEW_PX, self.VIEW_PX)
+        assert set(np.unique(got)) <= {0.0, 1.0}

@@ -25,8 +25,7 @@ class TestArgvBuilders:
     def test_defaults_omitted(self):
         argv = forms.build_perspcut_argv(
             {"input_dir": "/p", "preset": "default", "count": 8,
-             "size": 1600, "focal_mm": 12.0, "ext": "jpg",
-             "backend": "auto"})
+             "size": 1600, "focal_mm": 12.0, "ext": "jpg"})
         assert argv == ["-i", "/p"]
 
     def test_perspcut_overrides(self):
@@ -146,6 +145,20 @@ class TestRunner:
         assert not runner.run("k", [sys.executable, "-c", "pass"],
                               lines.append)
         assert runner.stop("k")
+
+    def test_one_run_at_a_time_across_keys(self):
+        # every tool is a JAX process that reserves most of the card
+        runner = ProcessRunner()
+        lines = []
+        assert runner.run("a", [sys.executable, "-c",
+                                "import time; time.sleep(2)"], lines.append)
+        assert runner.running_key() == "a"
+        assert not runner.run("b", [sys.executable, "-c", "pass"],
+                              lines.append)
+        assert not runner.run_queue("c", [[sys.executable, "-c", "pass"]],
+                                    lines.append)
+        assert "a is already running" in "".join(lines)
+        assert runner.stop("a")
 
     def test_queue_sequential(self):
         runner = ProcessRunner()

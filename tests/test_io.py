@@ -160,6 +160,87 @@ class TestPng16:
         assert head == b"\x89PNG\r\n\x1a\n"
 
 
+def _png_bytes(w, h, depth, ctype, filtered_rows):
+    """A PNG whose scanlines carry the given filter bytes (the encoder side
+    of the Sub/Up/Average/Paeth filters, written from the PNG spec)."""
+    import struct
+    import zlib
+
+    def chunk(tag, payload):
+        return (struct.pack(">I", len(payload)) + tag + payload
+                + struct.pack(">I", zlib.crc32(tag + payload) & 0xFFFFFFFF))
+
+    raw = b"".join(bytes([f]) + row.tobytes() for f, row in filtered_rows)
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype,
+                                         0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def _png_filter(filt, row, prev, bpp):
+    out = np.zeros_like(row)
+    for i in range(len(row)):
+        a = int(row[i - bpp]) if i >= bpp else 0
+        b = int(prev[i])
+        c = int(prev[i - bpp]) if i >= bpp else 0
+        pred = {0: 0, 1: a, 2: b, 3: (a + b) // 2}.get(filt)
+        if filt == 4:
+            pp = a + b - c
+            pa, pb, pc = abs(pp - a), abs(pp - b), abs(pp - c)
+            pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
+        out[i] = (int(row[i]) - pred) & 0xFF
+    return out
+
+
+class TestPngCodec:
+    """The zlib+numpy PNG codec that keeps PNG pipelines free of PIL."""
+
+    @pytest.mark.parametrize("shape,dtype", [
+        ((29, 41, 3), np.uint8), ((29, 41), np.uint8),
+        ((13, 17, 3), np.uint16), ((13, 17), np.uint16)])
+    def test_round_trip(self, tmp_path, shape, dtype):
+        info = np.iinfo(dtype)
+        img = np.random.default_rng(5).integers(0, info.max + 1, shape,
+                                                dtype=dtype)
+        im.write_image(tmp_path / "x.png", img)
+        back = im.read_image(tmp_path / "x.png")
+        want = img if img.ndim == 3 else np.repeat(img[..., None], 3, -1)
+        assert back.dtype == dtype
+        np.testing.assert_array_equal(back, want)
+
+    @pytest.mark.parametrize("ctype,chans", [(2, 3), (6, 4), (0, 1)])
+    def test_every_filter_type(self, tmp_path, monkeypatch, ctype, chans):
+        import importlib.util
+
+        real = importlib.util.find_spec
+        monkeypatch.setattr(importlib.util, "find_spec",
+                            lambda name, *a: None if name == "PIL"
+                            else real(name, *a))
+        rng = np.random.default_rng(ctype)
+        h, w = 10, 7
+        img = rng.integers(0, 256, (h, w * chans), dtype=np.uint8)
+        rows, prev = [], np.zeros(w * chans, np.uint8)
+        for y in range(h):
+            filt = y % 5
+            rows.append((filt, _png_filter(filt, img[y], prev, chans)))
+            prev = img[y]
+        p = tmp_path / "f.png"
+        p.write_bytes(_png_bytes(w, h, 8, ctype, rows))
+        back = im.read_image(p)
+        pix = img.reshape(h, w, chans)
+        want = np.repeat(pix, 3, -1) if chans == 1 else pix[..., :3]
+        np.testing.assert_array_equal(back, want)
+
+    def test_jpeg_without_pil_says_so(self, tmp_path, monkeypatch):
+        import sys
+
+        monkeypatch.setitem(sys.modules, "PIL", None)
+        with pytest.raises(RuntimeError, match="PIL"):
+            im.write_image(tmp_path / "x.jpg", np.zeros((4, 4, 3), np.uint8))
+        im.write_image(tmp_path / "x.png", np.zeros((4, 4, 3), np.uint8))
+        assert im.read_image(tmp_path / "x.png").shape == (4, 4, 3)
+
+
 class TestY4M:
     def test_round_trip_444(self, tmp_path):
         frames = gradient_frames()

@@ -12,37 +12,6 @@ def require_native():
         pytest.skip("native library not built (no toolchain)")
 
 
-class TestLayout:
-    def test_interleave_round_trip(self):
-        rng = np.random.default_rng(0)
-        hwc = rng.integers(0, 256, (33, 47, 3), np.uint8)
-        chw = native.deinterleave_u8(hwc)
-        np.testing.assert_array_equal(chw, np.moveaxis(hwc, -1, 0))
-        back = native.interleave_u8(chw)
-        np.testing.assert_array_equal(back, hwc)
-
-    def test_planar_f32_to_u8(self):
-        rng = np.random.default_rng(1)
-        chw = rng.random((3, 64, 80)).astype(np.float32)
-        out = native.planar_f32_to_u8_hwc(chw)
-        ref = np.clip(np.moveaxis(chw, 0, -1) * 255.0 + 0.5,
-                      0, 255).astype(np.uint8)
-        np.testing.assert_array_equal(out, ref)
-
-    def test_planar_f32_clamps(self):
-        chw = np.array([[[-0.5, 2.0]], [[0.0, 1.0]], [[0.5, 0.25]]],
-                       np.float32)
-        out = native.planar_f32_to_u8_hwc(chw)
-        assert out[0, 0, 0] == 0 and out[0, 1, 0] == 255
-
-    def test_multithreaded_matches(self):
-        rng = np.random.default_rng(2)
-        chw = rng.random((3, 256, 320)).astype(np.float32)
-        np.testing.assert_array_equal(
-            native.planar_f32_to_u8_hwc(chw, threads=1),
-            native.planar_f32_to_u8_hwc(chw, threads=4))
-
-
 class TestYuv:
     def test_yuv444_matches_numpy(self):
         from gs360x.io.video import rgb_to_yuv601, yuv601_to_rgb

@@ -50,6 +50,19 @@ class TestImageMode:
         assert "[OK] Completed: success=16" in captured.out
         assert "For Metashape" in captured.out
 
+    def test_png_run_needs_no_pil(self, pano_dir, tmp_path, monkeypatch,
+                                  capsys):
+        import sys
+
+        monkeypatch.setitem(sys.modules, "PIL", None)
+        out = tmp_path / "out"
+        rc = perspcut.main(["-i", str(pano_dir), "-o", str(out), "--size",
+                            "32", "--ext", "png"])
+        assert rc == 0
+        files = sorted(out.glob("*.png"))
+        assert len(files) == 16
+        assert im.read_image(files[0]).shape == (32, 32, 3)
+
     def test_dry_run_prints_plan(self, pano_dir, tmp_path, capsys):
         rc = perspcut.main(["-i", str(pano_dir), "--dry-run",
                             "--preset", "fisheyelike"])

@@ -2,14 +2,14 @@
 
 ``tools/make_goldens.py`` renders the test panorama through the actual
 ``v360`` filter (``interp=cubic``) on a machine with ffmpeg and commits
-compressed goldens; this test compares both warp backends against them
+compressed goldens; this test compares the warp against them
 within interpolation tolerance.  Skips when no goldens exist (this
 build environment has no ffmpeg — SURVEY §7 lists v360 pixel parity as
 a hard part precisely because of that).
 
 Tolerance note: v360's ``cubic`` is a Lagrange-basis 4-tap kernel on
-pixel-center coordinates, which is what ``gs360x.kernels.warp`` (and the
-Pallas twins) implement; residual differences come from u8 rounding and
+pixel-center coordinates, which is what ``gs360x.kernels.warp``
+implements; residual differences come from u8 rounding and
 v360's fixed-point tap weights. Measured bounds against the independent
 Q14 oracle (``gs360x/kernels/v360_oracle.py``) are recorded in
 ``docs/V360_PARITY.md`` and gated by ``tests/test_v360_oracle.py``;
@@ -60,7 +60,7 @@ def test_warp_matches_v360_golden(path):
         np.asarray([0.0], np.float32),
         width=meta["width"], height=meta["height"],
         hfov_deg=meta["hfov"], vfov_deg=meta["vfov"], projection=proj,
-        interp="bicubic", backend="xla")
+        interp="bicubic")
     ours = np.asarray(out)[0] * 255.0
 
     if proj == "fisheye_v360":

@@ -219,51 +219,116 @@ class TestShardedBatchWarp:
         diff = np.abs(np.asarray(out[0]).astype(int) - ref8.astype(int))
         assert diff.max() <= 1
 
-    def test_pallas_sharded_matches_xla(self):
+    @pytest.mark.parametrize("batch", [8, 5, 1, 11])
+    def test_sharded_8dev_matches_one_device(self, batch):
+        """The 8-device CPU mesh against a 1-device mesh, including batches
+        that do not divide by the mesh (a video's tail is padded with its
+        last frame, and the padding dropped)."""
         import jax
-        import jax.numpy as jnp
 
-        from gs360x.kernels import warp as warplib
         from gs360x.runtime import mesh as meshlib
 
-        n = jax.device_count()
-        batch = max(2, n)
-        rng = np.random.default_rng(1)
-        frames = (rng.random((batch, 128, 256, 3)) * 255).astype(np.uint8)
-        rows = jnp.asarray(frames.reshape(batch, 128, 256 * 3))
-        yaws = np.array([0.0, 90.0], np.float64)
-        zeros = np.zeros(2, np.float64)
-        m = meshlib.data_mesh()
-        out = meshlib.warp_frames_sharded_pallas(
-            m, rows[:n] if n > 1 else rows[:1], yaws, zeros, zeros,
-            width=128, height=64, hfov_deg=90.0, vfov_deg=90.0,
-            interp="bilinear", quantize_bits=8, interpret=True)
-        assert out.dtype == jnp.uint8
-        assert out.shape[1:] == (2, 3, 64, 128)
-        ref = warplib._warp_equirect_to_views_xla(
-            jnp.asarray(frames[0].astype(np.float32) / 255.0),
-            jnp.asarray(yaws, jnp.float32), jnp.asarray(zeros, jnp.float32),
-            jnp.asarray(zeros, jnp.float32),
-            width=128, height=64, hfov_deg=90.0, vfov_deg=90.0,
-            projection="perspective", interp="bilinear")
-        ref8 = np.rint(np.clip(np.asarray(ref), 0, 1) * 255).astype(np.uint8)
-        got = np.transpose(np.asarray(out[0]), (0, 2, 3, 1))  # planar→HWC
-        diff = np.abs(got.astype(int) - ref8.astype(int))
-        assert diff.max() <= 1
+        devs = jax.devices()
+        assert len(devs) == 8
+        rng = np.random.default_rng(batch)
+        frames = (rng.random((batch, 32, 64, 3)) * 255).astype(np.uint8)
+        kw = dict(width=24, height=16, hfov_deg=90.0, vfov_deg=70.0,
+                  interp="bilinear", quantize_bits=8)
+        angles = (np.array([0.0, 100.0], np.float32),
+                  np.array([10.0, -40.0], np.float32),
+                  np.zeros(2, np.float32))
+        out = meshlib.warp_frames_sharded(meshlib.data_mesh(devs), frames,
+                                          *angles, **kw)
+        ref = meshlib.warp_frames_sharded(meshlib.data_mesh(devs[:1]),
+                                          frames, *angles, **kw)
+        assert out.shape == ref.shape == (batch, 2, 16, 24, 3)
+        if batch % 8 == 0:
+            assert len(out.sharding.device_set) == 8
+        np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
 
-    def test_pallas_sharded_rejects_over_budget_views(self):
-        import jax.numpy as jnp
-        import pytest
 
-        from gs360x.kernels.warp_pallas import PallasFallback
+class TestPipelineDevices:
+    def test_cpu_gets_one_device(self):
         from gs360x.runtime import mesh as meshlib
 
-        rows = jnp.zeros((1, 2048, 256 * 3), jnp.float32)
-        m = meshlib.data_mesh()
-        with pytest.raises(PallasFallback):
-            # ~32 src rows per output row: a 16-row tile spans ~500 window
-            # rows, beyond every wide row class — must reject up front
-            meshlib.warp_frames_sharded_pallas(
-                m, rows, [0.0], [0.0], [0.0], width=128, height=64,
-                hfov_deg=90.0, vfov_deg=179.0, interp="bicubic",
-                interpret=True)
+        devs = meshlib.pipeline_devices()
+        assert len(devs) == 1 and devs[0].platform == "cpu"
+
+    @pytest.mark.parametrize("platform,count,expect", [
+        ("gpu", 4, 4), ("gpu", 1, 1), ("cpu", 8, 1)])
+    def test_choice_follows_platform(self, monkeypatch, platform, count,
+                                     expect):
+        import types
+
+        import jax
+
+        from gs360x.runtime import mesh as meshlib
+
+        fake = [types.SimpleNamespace(platform=platform, id=i)
+                for i in range(count)]
+        monkeypatch.setattr(jax, "devices", lambda *a: fake)
+        assert meshlib.pipeline_devices() == fake[:expect]
+
+    def test_unknown_platform_raises(self, monkeypatch):
+        import types
+
+        import jax
+
+        from gs360x.runtime import mesh as meshlib
+
+        monkeypatch.setattr(
+            jax, "devices",
+            lambda *a: [types.SimpleNamespace(platform="metal", id=0)])
+        with pytest.raises(RuntimeError, match="metal"):
+            meshlib.pipeline_devices()
+
+
+class TestMixedViewOrder:
+    """A plan mixing projections and sizes comes back in plan order, each
+    view equal to its own single-view warp."""
+
+    VIEWS = [
+        ViewSpec("A", 0.0, 0.0, 90.0, 90.0, 40, 40),
+        ViewSpec("X", 0.0, 0.0, 190.0, 190.0, 32, 32,
+                 projection="fisheye_v360"),
+        ViewSpec("B", 45.0, 30.0, 90.0, 90.0, 40, 40),
+        ViewSpec("S", 90.0, 0.0, 180.0, 180.0, 32, 32,
+                 projection="equisolid"),
+        ViewSpec("C", -90.0, -20.0, 60.0, 45.0, 24, 16),
+        ViewSpec("Y", 180.0, 0.0, 190.0, 190.0, 32, 32,
+                 projection="fisheye_v360"),
+    ]
+
+    def _single(self, pano, view):
+        out = warp.warp_equirect_to_views(
+            pano, [view.yaw_deg], [view.pitch_deg], [view.roll_deg],
+            width=view.width, height=view.height, hfov_deg=view.hfov_deg,
+            vfov_deg=view.vfov_deg, projection=view.projection,
+            interp="bicubic")
+        return np.rint(np.clip(np.asarray(out[0]), 0, 1) * 255)
+
+    @pytest.mark.parametrize("path", ["warp_plan_views", "executor"])
+    def test_order_and_values(self, path):
+        from gs360x.runtime import executor
+        from gs360x.runtime import mesh as meshlib
+
+        pano = lonlat_pano(128, 64)
+        if path == "warp_plan_views":
+            outs = [np.rint(np.clip(np.asarray(o), 0, 1) * 255)
+                    for o in warp.warp_plan_views(pano, self.VIEWS,
+                                                  interp="bicubic")]
+        else:
+            frame = np.asarray(pano)
+            res = executor._warp_frames(
+                [frame], self.VIEWS, interp="bicubic",
+                mesh=meshlib.data_mesh(meshlib.pipeline_devices()),
+                quantize_bits=8)[0]
+            outs = [np.asarray(parent)[index] for parent, index in res]
+        for view, out in zip(self.VIEWS, outs):
+            assert out.shape == (view.height, view.width, 3), view.view_id
+            np.testing.assert_allclose(out, self._single(pano, view),
+                                       atol=1, err_msg=view.view_id)
+
+    def test_grouping_key_is_static_shape(self):
+        groups = warp.group_views(self.VIEWS)
+        assert sorted(groups.values()) == [[0, 2], [1, 5], [3], [4]]

@@ -3,7 +3,7 @@
 
 The warp kernels claim v360-convention sampling (pixel-center offsets,
 Lagrange bicubic, seam wrap, pole clamp — see
-``gs360x/kernels/warp.py`` and ``_resample_tile_*`` in ``warp_pallas.py``;
+``gs360x/kernels/warp.py``;
 reference command builders: ``gs360_360PerspCut.py:286-349`` rectilinear
 and ``:351-414`` equisolid).  This environment has no ffmpeg, so that
 claim is asserted, not verified.  This script closes the loop wherever
